@@ -35,12 +35,12 @@ def test_cli_lossless_roundtrip(tmp_path):
     out = tmp_path / "out.hevc"
     csv = tmp_path / "log.csv"
     frames = _make_clip(clip)
-    # --no-tpu: numpy analysis path — skips JAX compiles in the fresh
-    # subprocess so the suite stays fast; the TPU path is covered by the
+    # --host-analysis: numpy analysis path — skips JAX compiles in the fresh
+    # subprocess so the suite stays fast; the device path is covered by the
     # in-process tests
     r = _run_cli(["--input", str(clip), "--output", str(out),
                   "--preset", "ultrafast", "--lossless", "--keyint", "1",
-                  "--no-tpu", "--csv", str(csv)])
+                  "--host-analysis", "--csv", str(csv)])
     assert r.returncode == 0, r.stderr[-800:]
     assert "encoded 3 frames" in r.stderr + r.stdout
     bs = out.read_bytes()
@@ -68,7 +68,7 @@ def test_decoder_cli(tmp_path):
     frames = _make_clip(clip)
     r = _run_cli(["--input", str(clip), "--output", str(out),
                   "--preset", "ultrafast", "--lossless", "--keyint", "1",
-                  "--no-tpu"])
+                  "--host-analysis"])
     assert r.returncode == 0, r.stderr[-500:]
     env = dict(os.environ)
     env.setdefault("JAX_PLATFORMS", "cpu")

@@ -1,5 +1,5 @@
 """The finalizer split must not change a single bit: encoding with the
-TPU inter-residual pipeline (native consumes precomputed levels/cbf/recon
+device inter-residual pipeline (native consumes precomputed levels/cbf/recon
 and emits bins only) must produce byte-identical streams to the all-CPU
 native path (reference analog: compressCTU/encodeCTU produce the same
 stream regardless of which thread ran the pixel math)."""
@@ -35,10 +35,7 @@ def _encode(frames, split, **kw):
         else:
             setattr(p, k, v)
     enc = Encoder(p)
-    enc.use_tpu_residual = split
-    from x265_tpu import native
-    if native.get_lib() is None:
-        pytest.skip("native unavailable")
+    enc.use_device_residual = split
     return enc.encode(frames)
 
 

@@ -14,7 +14,7 @@ from x265_tpu.api.encoder import Encoder
 from x265_tpu.api.params import RC_CQP, param_default_preset
 from x265_tpu.decoder import de265
 from x265_tpu.decoder.decoder import HEVCDecoder
-from x265_tpu.models.intra_frame import decide_intra_frame_tpu
+from x265_tpu.models.intra_frame import decide_intra_frame_device
 from x265_tpu.models.intra_rdo import rd_intra_promote32
 
 
@@ -35,7 +35,7 @@ def test_promotion_mutates_maps():
     p = param_default_preset("medium")
     p.width, p.height = W, H
     y, cb, cr = _flat_frame(W, H)
-    dec = decide_intra_frame_tpu(y, W, H, cu_log2=4)
+    dec = decide_intra_frame_device(y, W, H, cu_log2=4)
     n = rd_intra_promote32((y, cb, cr), dec, 30, p)
     assert n > 0
     # promoted cells: full 4x4 8-blocks at log2 5 with a uniform mode
@@ -56,7 +56,7 @@ def test_lossless_skips_promotion():
     p.width, p.height = W, H
     p.lossless = True
     y, cb, cr = _flat_frame(W, H)
-    dec = decide_intra_frame_tpu(y, W, H, cu_log2=4)
+    dec = decide_intra_frame_device(y, W, H, cu_log2=4)
     assert rd_intra_promote32((y, cb, cr), dec, 30, p) == 0
 
 

@@ -13,8 +13,6 @@ from x265_tpu.models.intra_pred import predict_intra_batch
 @pytest.mark.parametrize("nt", [4, 8, 16, 32])
 def test_pred_matches_native(nt):
     lib = native.get_lib()
-    if lib is None:
-        pytest.skip("native unavailable")
     lib.debug_pred.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     rng = np.random.default_rng(nt)

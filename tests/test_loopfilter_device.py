@@ -102,7 +102,7 @@ def test_encoder_streams_identical_device_vs_cpu_loopfilter():
 
     def enc(dev):
         e = Encoder(p.copy() if hasattr(p, "copy") else p)
-        e.use_tpu_loopfilter = dev
+        e.use_device_loopfilter = dev
         return e.encode(frames)
 
     a = enc(True)

@@ -2,7 +2,6 @@
 with the Python reference writer for P and B slices (the x265 TestBench
 pattern, SURVEY.md §4, applied to the entropy stage)."""
 import numpy as np
-import pytest
 
 from x265_tpu import native
 from x265_tpu.api.encoder import Encoder
@@ -11,9 +10,6 @@ from x265_tpu.engine.ctu_writer import FrameSyntaxWriter
 from x265_tpu.hevc.headers import (
     SLICE_B, SLICE_P, ShortTermRPS, SliceHeader,
 )
-
-pytestmark = pytest.mark.skipif(native.get_lib() is None,
-                                reason="native lib unavailable")
 
 
 def _setup(w=96, h=64, qp=30):

@@ -1,7 +1,6 @@
 """DCT-domain noise reduction (x265 --nr-intra/--nr-inter; denoiseDct
 dct.cpp:744 + noiseReductionUpdate frameencoder.cpp:2098)."""
 import numpy as np
-import pytest
 
 from x265_tpu.api.encoder import Encoder
 from x265_tpu.api.params import param_default_preset, param_parse
@@ -37,9 +36,6 @@ def test_nr_reduces_bits_on_noise():
 
 
 def test_nr_native_matches_python():
-    from x265_tpu import native
-    if native.get_lib() is None:
-        pytest.skip("native finalizer unavailable")
     frames = _noisy_clip(n=4)
     bn = Encoder(_params(500, 500)).encode(frames)
     ep = Encoder(_params(500, 500))

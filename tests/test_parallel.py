@@ -56,3 +56,38 @@ def test_sharded_rc_psum_equals_sum_of_bands():
     manual = float(np.minimum(np.asarray(icost).reshape(H // S, W // S),
                               np.asarray(mcost) * 2.0).sum())
     assert abs(float(fc) - manual) / max(1.0, manual) < 1e-5
+
+
+def test_mesh_inter_encode_matches_single_device():
+    """P frames through Encoder.attach_mesh on 4 devices: the CU-lane
+    inter-residual batches shard over the mesh (_inter_multi), and the
+    stream is byte-identical to the single-device encode."""
+    from x265_tpu.api.encoder import Encoder
+    from x265_tpu.api.params import RC_CQP, param_default_preset
+
+    W, H = 128, 64
+    rng = np.random.default_rng(11)
+    base = rng.integers(40, 200, (H, W + 16))
+    frames = [(np.clip(base[:, 2 * i:2 * i + W]
+                       + rng.integers(-2, 3, (H, W)), 0, 255)
+               .astype(np.uint8),
+               np.full((H // 2, W // 2), 120, np.uint8),
+               np.full((H // 2, W // 2), 133, np.uint8)) for i in range(2)]
+
+    def encode(mesh):
+        p = param_default_preset("medium")
+        p.width, p.height = W, H
+        p.rc_mode, p.qp = RC_CQP, 30
+        p.bframes = 0
+        p.rc_lookahead = 0
+        p.scenecut = 0
+        p.slices = 4
+        e = Encoder(p)
+        if mesh is not None:
+            e.attach_mesh(mesh)
+        return e.encode(frames)
+
+    one = encode(None)
+    assert encode(make_tile_mesh(4)) == one
+    from x265_tpu.decoder.decoder import HEVCDecoder
+    assert len(HEVCDecoder().decode(one)) == len(frames)

@@ -99,7 +99,7 @@ def test_scaling_native_matches_oracle():
     for use_native in (True, False):
         enc = Encoder(_params(rdoq_level=2))
         enc.use_native = use_native
-        enc.use_tpu_residual = False
+        enc.use_device_residual = False
         streams.append(enc.encode(frames))
     assert streams[0] == streams[1]
 
@@ -107,11 +107,11 @@ def test_scaling_native_matches_oracle():
 @pytest.mark.slow
 def test_scaling_device_matches_cpu():
     """The device residual pipeline (inter CUs) applies the same default
-    matrices: byte-identical stream with use_tpu_residual on/off."""
+    matrices: byte-identical stream with use_device_residual on/off."""
     frames = _frames(4)
     streams = []
-    for tpu_res in (True, False):
+    for dev_res in (True, False):
         enc = Encoder(_params(rdoq_level=2))
-        enc.use_tpu_residual = tpu_res
+        enc.use_device_residual = dev_res
         streams.append(enc.encode(frames))
     assert streams[0] == streams[1]

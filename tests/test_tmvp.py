@@ -78,9 +78,6 @@ def test_tmvp_conformance(bframes, pyramid):
 
 
 def test_tmvp_native_matches_python():
-    from x265_tpu import native
-    if native.get_lib() is None:
-        pytest.skip("native finalizer unavailable")
     frames = _pan_clip(n=5)
     enc_n = Encoder(_params(2))
     bs_n = enc_n.encode(frames)

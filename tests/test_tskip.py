@@ -73,7 +73,7 @@ def test_tskip_native_matches_oracle():
     for use_native in (True, False):
         enc = Encoder(_params(rdoq_level=2))
         enc.use_native = use_native
-        enc.use_tpu_residual = False
+        enc.use_device_residual = False
         streams.append(enc.encode(frames))
     assert streams[0] == streams[1]
 
@@ -96,8 +96,8 @@ def test_tskip_device_path_matches_cpu():
     device classes are unaffected — streams must still be byte-equal."""
     frames = _frames(4)
     streams = []
-    for tpu_res in (True, False):
+    for dev_res in (True, False):
         enc = Encoder(_params(rdoq_level=2))
-        enc.use_tpu_residual = tpu_res
+        enc.use_device_residual = dev_res
         streams.append(enc.encode(frames))
     assert streams[0] == streams[1]

@@ -4,7 +4,6 @@ Reference analog: x265 weightPrediction.cpp (weightAnalyse) and the
 WeightParam application in predict.cpp.
 """
 import numpy as np
-import pytest
 
 from x265_tpu.api.encoder import Encoder
 from x265_tpu.api.params import param_default_preset, param_parse
@@ -75,9 +74,6 @@ def test_weightp_saves_bits_and_conforms():
 
 
 def test_weightp_native_matches_python():
-    from x265_tpu import native
-    if native.get_lib() is None:
-        pytest.skip("native finalizer unavailable")
     frames = _fade_clip(n=3)
     enc_n = Encoder(_params(weightp=True))
     bs_n = enc_n.encode(frames)

@@ -203,15 +203,19 @@ def _cache_key() -> str:
         return hashlib.sha256(f.read()).hexdigest()[:12]
 
 
+_CACHE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), ".clip_cache")
+
+
 def frames_of(name: str):
-    """Frames of a named clip, disk-cached: generation is deterministic
-    but costs ~30-90 s of pure numpy for the 1080p clip, which is bench
-    budget (the driver runs bench.py under a hard timeout)."""
+    """Frames of a named clip, disk-cached inside the checkout:
+    generation is deterministic but costs ~30-90 s of pure numpy for the
+    1080p clip."""
     gen, W, H, n = CLIPS[name]
-    path = os.path.join("/tmp", f"x265tpu_clip_{name}_{_cache_key()}.npz")
+    os.makedirs(_CACHE_DIR, exist_ok=True)
+    path = os.path.join(_CACHE_DIR, f"{name}_{_cache_key()}.npz")
     import glob
-    for stale in glob.glob(os.path.join(
-            "/tmp", f"x265tpu_clip_{name}_*.npz")):
+    for stale in glob.glob(os.path.join(_CACHE_DIR, f"{name}_*.npz")):
         if stale != path:
             try:
                 os.unlink(stale)

@@ -1,6 +1,6 @@
 """Bit-composition analysis of an HEVC stream via the in-repo decoder.
 
-The TPU-native analog of x265's csv-log-level-2 frame analysis
+The analog of x265's csv-log-level-2 frame analysis
 (x265.h x265_frame_stats: cuStats/percent* fields, csvfile.cpp): decode a
 stream with per-CU statistics collection and report, per frame and in
 aggregate, how the bits split across CU kinds (skip / merge / AMVP /

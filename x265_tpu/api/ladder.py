@@ -2,7 +2,7 @@
 AbrEncoder + per-rendition PassEncoder/Reader/Scaler threads sharing a
 picture ring; SURVEY.md §2.4 P6).
 
-TPU-native design: renditions are independent encoder instances fed from
+Batched design: renditions are independent encoder instances fed from
 one shared source via the jitted downscaler. On a single host they run
 round-robin (the reader/scaler threads collapse into this loop); across
 hosts each rendition (or GOP segment) pins to a jax.distributed process —

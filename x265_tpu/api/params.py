@@ -7,7 +7,7 @@ dataclass with the same layered resolution order:
 
     defaults -> preset -> tune -> explicit options -> profile/level -> fixups
 
-Only options that the TPU engine currently honors are listed; unknown names
+Only options that the engine currently honors are listed; unknown names
 passed to :func:`param_parse` raise ``KeyError`` (matching
 x265_param_parse's X265_PARAM_BAD_NAME behavior, param.cpp:778).
 """
@@ -123,7 +123,7 @@ class Param:
     lowpass_dct: bool = False    # coerced off (no impl)
     dynamic_rd: float = 0.0      # coerced off (no impl)
     # serial-CPU pruning dials: the batched analysis evaluates all
-    # candidates in one dispatch, so these save nothing on TPU —
+    # candidates in one dispatch, so these save nothing here —
     # accepted for CLI compatibility, intentionally inert (_NOOP_HINTS)
     limit_refs: int = 3
     limit_modes: bool = False
@@ -187,7 +187,7 @@ class Param:
     deblock_beta_offset: int = 0
     sao: bool = True
 
-    # --- slices / parallelism (TPU: mesh axes) ---
+    # --- slices / parallelism (device mesh axes) ---
     frame_parallelism: int = 2   # frames in flight (dispatch pipeline)
     wpp: bool = False            # emit WPP entry-point substreams
     #   (entropy_coding_sync). Analysis stays wave-free batched; WPP
@@ -196,7 +196,7 @@ class Param:
     #   (entropy.cpp:724, frameencoder.cpp:1033 analog)
     slices: int = 1
     tiles: Tuple[int, int] = (1, 1)
-    # thread-scheduling knobs from the reference's pool model: the TPU
+    # thread-scheduling knobs from the reference's pool model: the device
     # runtime has no worker threads to steer — accepted, inert
     pools: str = ""
     lookahead_slices: int = 8
@@ -294,7 +294,7 @@ def param_default() -> Param:
 
 
 # Preset table: the speed/quality dial of x265 (param.cpp:390-560,
-# doc/reST/presets.rst:35-104). Values are the knobs the TPU engine honors.
+# doc/reST/presets.rst:35-104). Values are the knobs the engine honors.
 _PRESET_TABLE = {
     #              ctu  bframes b_adapt rc_la ref rd  subme me      rect  amp   early rdoq aq
     "ultrafast":  dict(ctu_size=32, bframes=3, b_adapt=0, rc_lookahead=5,  ref=1, rd_level=2, sub_me=0, me_method="dia", rect=False, amp=False, early_skip=True,  rdoq_level=0, aq_mode=0, cu_tree=False, sao=False, deblock=False, tu_intra_depth=1, fast_intra=True, weightp=False),
@@ -495,7 +495,7 @@ _OPT_ALIASES = {
     "scenecut-bias": "scenecut_bias",
     "gop-lookahead": "gop_lookahead",
     "hist-threshold": "hist_threshold",
-    # --- threading-model hints (inert on TPU by design) ---
+    # --- threading-model hints (inert by design) ---
     "pools": "pools",
     "numa-pools": "pools",
     "lookahead-slices": "lookahead_slices",
@@ -654,7 +654,7 @@ COERCED_OPTIONS = {
     "qg_size": "sub-CTU QP groups not implemented (QG == CTU)",
 }
 
-# serial-CPU scheduling/pruning knobs: the batched TPU analysis
+# serial-CPU scheduling/pruning knobs: the batched device analysis
 # evaluates all candidates in one dispatch and has no worker threads to
 # steer, so these have nothing to act on — parsed for CLI compatibility
 # and intentionally inert (the "re-imagined" class, SURVEY §2.4).

@@ -34,7 +34,7 @@ def main(argv=None) -> int:
     ap.add_argument("--recon-play", default=None, metavar="CMD",
                     help="pipe recon Y4M to a player command "
                          "(x265 --recon-y4m-exe)")
-    ap.add_argument("--no-tpu", action="store_true", help="numpy analysis path")
+    ap.add_argument("--host-analysis", action="store_true", help="numpy analysis path")
     ap.add_argument("--dither", action="store_true",
                     help="error-diffusion dither when reducing input depth")
     ap.add_argument("--csv", default=None, help="per-frame CSV log")
@@ -103,8 +103,8 @@ def main(argv=None) -> int:
 
     p.psnr_metrics = True          # the CLI reports PSNR/SSIM like x265
     enc = Encoder(p)
-    if args.no_tpu:
-        enc.use_tpu_analysis = False
+    if args.host_analysis:
+        enc.use_device_analysis = False
 
     csv = open(args.csv, "w") if args.csv else None
     csv2 = csv and p.csv_log_level >= 2

@@ -2,7 +2,7 @@
 
 This is the encoder half of the split that defines the whole framework
 (SURVEY.md §7.1 "split decision-math from bit-math"): all pixel math and
-mode decisions happen in batched TPU computation (x265 analog:
+mode decisions happen in batched device computation (x265 analog:
 Analysis::compressCTU); this writer only *re-derives deterministic state*
 (predictions, residuals, reconstruction) and emits syntax (x265 analog:
 Entropy::encodeCTU, frameencoder.cpp:1533).

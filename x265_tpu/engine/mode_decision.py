@@ -2,7 +2,7 @@
 Search::estIntraPredQT analog, reference analysis.cpp:514, search.cpp:1509).
 
 v0 is a numpy reference implementation processing CUs in coding order with
-exact availability; the TPU production path (x265_tpu.models.intra_frame)
+exact availability; the device production path (x265_tpu.models.intra_frame)
 computes the same decision tensors as a single batched jitted graph with
 source-neighbor prediction (legal because the finalizer re-derives exact
 predictions; see SURVEY.md §7.1).

@@ -7,7 +7,7 @@ the whole frame's edges of one direction are *independent* (vertical edges
 are 8 luma samples apart, each filter touches <=4 samples per side), so the
 filter is two fully-vectorized passes — all vertical edges, then all
 horizontal edges — expressed as dense array ops that map 1:1 onto jnp for
-the TPU path.
+the device path.
 
 State model: per-4x4-block maps (the CUData analog) —
   edge_v/edge_h : transform/prediction-block boundary flags

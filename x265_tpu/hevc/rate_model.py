@@ -7,7 +7,7 @@ fixed point) that Quant::rdoQuant (quant.cpp:610) reads per
 coefficient.  Pure table math — perfectly jittable — and the thing that
 makes RDOQ/merge decisions track the real coder.
 
-TPU-first re-imagining: contexts cannot evolve inside a batched
+Batched re-imagining: contexts cannot evolve inside a batched
 dispatch, so the states are snapshotted ONCE per slice at their
 spec-initial values (9.3.2.2: a function of initType and SliceQpY
 only — fully deterministic, so the Python oracle, the native C++

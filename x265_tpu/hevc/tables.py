@@ -409,7 +409,7 @@ GO_RICE_RANGE = np.array([7, 14, 26, 46, 78], dtype=np.int32)
 
 # RDOQ lambda, 5-bit fixed point (x265 Quant::setQPforQuant lambda wiring,
 # calibration 0.4 from round-1 tuning): LAM32[qp] ~ 0.4*0.85*2^((qp-12)/3)*32.
-# Kept integer so the native finalizer, the Python oracle, and the TPU
+# Kept integer so the native finalizer, the Python oracle, and the device
 # residual pipeline make bit-identical RDOQ decisions (no float divergence).
 RDOQ_LAM32 = np.array(
     [int(np.floor(0.4 * 0.85 * (2.0 ** ((q - 12) / 3.0)) * 32 + 0.5))

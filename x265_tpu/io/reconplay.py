@@ -4,7 +4,7 @@ x265 analog: source/output/reconplay.{h,cpp} — x265's --recon-y4m-exe
 spawns a player process and pipes the reconstructed frames to its stdin
 as Y4M, in display order, so an operator can watch the encode live.
 
-TPU-native differences: recon planes arrive from the encoder in *encode*
+Differences from x265: recon planes arrive from the encoder in *encode*
 order (the mini-GOP finalizer emits anchors before their leading B
 frames), so this class keeps a small POC-indexed reorder buffer and
 flushes the longest contiguous display-order prefix after every arrival

@@ -4,7 +4,7 @@ x265 analog: Analysis::compressInterCU_rd0_4's bottom-up merge
 (analysis.cpp:1146) — each candidate CU size is coded (predict,
 transform, quantize, reconstruct), its distortion measured against the
 source and its rate estimated, and the cheaper tree wins. Re-imagined
-TPU-first: every candidate 32x32 group in the frame is evaluated in ONE
+as batched work: every candidate 32x32 group in the frame is evaluated in ONE
 batched dispatch.
 
 Unlike a same-motion-only merge, the 32-CU candidate is coded at a

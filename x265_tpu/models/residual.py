@@ -1,4 +1,4 @@
-"""Exact-integer residual pipeline on the TPU — the decide/emit split.
+"""Exact-integer residual pipeline on the device — the decide/emit split.
 
 Device side of the finalizer split (reference analog: x265 separates
 Analysis::compressCTU pixel math from encodeCTU bin emission,
@@ -8,7 +8,7 @@ forward/inverse transform (spec 8.6 HM scaling), quant (171/85 deadzone),
 integer RDOQ (shared RDOQ_LAM32 fixed-point lambda), sign-bit-hiding,
 dequant — so the CPU consumes (levels, cbf, recon) tensors and emits
 CABAC bins only, with streams byte-identical to the all-CPU path
-(differential-tested in tests/test_residual_tpu.py).
+(differential-tested in tests/test_residual_device.py).
 
 Kernels are batched over TUs of one static size; per-TU QP is a tensor
 (AQ/cuTree qp_map). Transform/quant/dequant are int32-exact (bounds in
@@ -368,7 +368,7 @@ def tq_chain(resi, qp, scan_sel, n: int, dst: bool, is_intra: bool,
     resi [N,n,n] int32; qp [N] (already plane-adjusted Qp'); scan_sel [N]
     scan index for SBH. Returns (levels int32 [N,n,n], rres int32 [N,n,n],
     cbf bool [N]). Traced under x64 so the RDOQ cost accumulation is
-    int64-exact (TPU emulates s64 for these small elementwise ops).
+    int64-exact.
     """
     from x265_tpu.utils import checks
     if checks.enabled():      # X265TPU_CHECKIFY=1: instrumented graph

@@ -1,64 +1,90 @@
-"""Native (C++) components, built lazily with g++ and loaded via ctypes.
+"""Native (C++) components, built with g++ on the host that loads them
+and called through ctypes.
 
 The slice writer is the framework's serial native finalizer (SURVEY.md
 §7.2): decision tensors in, CABAC slice bytes out. Python reference
 implementations remain the behavioral oracle (differential-tested).
+
+The library is built with ``-march=native`` from the committed sources,
+so its file name carries a hash of those sources, the flags and the
+host's CPU: a library built for another machine or from older sources
+is never loaded. A failed build raises.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SO = os.path.join(_DIR, "libx265tpu.so")
 _SRC = os.path.join(_DIR, "slice_writer.cpp")
 _HDR = os.path.join(_DIR, "tables_gen.h")
+_FLAGS = ("-O3", "-march=native", "-funroll-loops", "-fPIC", "-shared",
+          "-std=c++17")
 _lock = threading.Lock()
 _lib = None
-_build_failed = False
 
 
-def _needs_build() -> bool:
-    if not os.path.exists(_SO):
-        return True
-    mt = os.path.getmtime
-    return mt(_SO) < max(mt(_SRC), mt(_HDR) if os.path.exists(_HDR) else 0)
+def _host_key() -> str:
+    """CPU model + feature flags (what -march=native compiles for)."""
+    bits = [platform.machine()]
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("model name", "flags", "Features")):
+                    bits.append(line.split(":", 1)[1].strip())
+                    if len(bits) == 3:
+                        break
+    except OSError:
+        bits.append(platform.processor())
+    return "|".join(bits)
 
 
-def _build() -> bool:
-    if not os.path.exists(_HDR):
-        gen = os.path.join(_DIR, "..", "..", "tools", "gen_native_tables.py")
-        subprocess.run(["python3", gen], check=True)
-    cmd = ["g++", "-O3", "-march=native", "-funroll-loops", "-fPIC",
-           "-shared", "-std=c++17", "-o", _SO, _SRC]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        import sys
-        print("native build failed:\n" + r.stderr, file=sys.stderr)
-        return False
-    return True
+def lib_path() -> str:
+    """Path of the library built for these sources, flags and host."""
+    h = hashlib.sha256()
+    for path in (_SRC, _HDR):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(_FLAGS).encode())
+    h.update(_host_key().encode())
+    return os.path.join(_DIR, f"libx265tpu-{h.hexdigest()[:16]}.so")
+
+
+def _build(so: str) -> None:
+    # build to a temporary name, then rename: concurrent processes never
+    # load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_DIR)
+    os.close(fd)
+    try:
+        r = subprocess.run(["g++", *_FLAGS, "-o", tmp, _SRC],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError("native slice writer build failed:\n"
+                               + r.stderr[-4000:])
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 def get_lib():
-    """Load (building if needed) the native library; None if unavailable."""
-    global _lib, _build_failed
+    """Load the native library, building it first if this host has no
+    build of the current sources. Raises if the build fails."""
+    global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        if _build_failed:
-            return None
-        try:
-            if _needs_build() and not _build():
-                _build_failed = True
-                return None
-            lib = ctypes.CDLL(_SO)
-        except Exception:
-            _build_failed = True
-            return None
+        so = lib_path()
+        if not os.path.exists(so):
+            _build(so)
+        lib = ctypes.CDLL(so)
         lib.encode_slice_intra.restype = ctypes.c_int
         lib.encode_slice_intra.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # planes
@@ -121,10 +147,8 @@ def encode_slice_intra(src_y, src_cb, src_cr, cu_log2_map, luma_mode8,
                        lossless, sign_hiding, strong_smooth,
                        cb_qp_off=0, cr_qp_off=0, want_recon=False):
     """Native slice-data encode; returns bytes (or (bytes, recon) when
-    want_recon) or None if the library is unavailable."""
+    want_recon), or None when the writer rejects the slice."""
     lib = get_lib()
-    if lib is None:
-        return None
     h, w = src_y.shape
     y = np.ascontiguousarray(src_y, dtype=np.uint8)
     cbp = np.ascontiguousarray(src_cb, dtype=np.uint8)
@@ -182,7 +206,7 @@ def encode_slice_px(src_y, src_cb, src_cr, cu_log2_map, luma_mode8,
     TMVP (8.5.3.2.7-8.5.3.2.9).
     nr: optional (offsets u16[16,1024], sums u32[16,1024], counts u32[16])
     DCT-domain noise reduction; sums/counts accumulate in place.
-    pre: optional precomputed residual tensors from the TPU pipeline
+    pre: optional precomputed residual tensors from the device pipeline
     (models/residual.py) — dict with lvl_y/lvl_cb/lvl_cr int16 planes,
     cbf8 uint8 [h8,w8] (bit0=y,1=cb,2=cr), has8 uint8 [h8,w8], rec_y/
     rec_cb/rec_cr int16 recon planes. CUs with has8=1 are emit-only.
@@ -190,11 +214,10 @@ def encode_slice_px(src_y, src_cb, src_cr, cu_log2_map, luma_mode8,
     runs with CABAC disabled (collect-only) and fills these buffers, so
     a later emit-only call can replay them via `pre` (the single-CABAC
     SAO pipeline; sao.cpp:1225 derives SAO from stats, not re-encode).
-    Returns (bytes, recon, cbf4, qp_actual) or None if unavailable.
+    Returns (bytes, recon, cbf4, qp_actual), or None when the writer
+    rejects the slice.
     """
     lib = get_lib()
-    if lib is None:
-        return None
     h, w = src_y.shape
     c = np.ascontiguousarray
     y = c(src_y, dtype=np.uint16)

@@ -1,7 +1,7 @@
 // Native slice-data finalizer: decision tensors -> CABAC slice bytes.
 //
 // This is the framework's serial native component (SURVEY.md §7.2): the
-// analysis runs as batched TPU computation, and this C++ walker re-derives
+// analysis runs as batched device computation, and this C++ walker re-derives
 // normative integer predictions/residuals and emits the entropy-coded
 // slice. Mirrors x265's compressCTU/encodeCTU split (frameencoder.cpp:1519
 // vs 1533) with the decide stage replaced by precomputed decision maps.
@@ -432,7 +432,7 @@ static void dequantize(const int32_t* lvl, int n, int qp, int bd, int32_t* out,
 // per-coefficient level choice among {l, l-1, 0} + whole-CG zeroing with a
 // static bin-count rate model. All-integer cost arithmetic (lambda from the
 // shared kRdoqLam32 fixed-point table) so the native finalizer, the Python
-// oracle and the TPU residual pipeline decide identically:
+// oracle and the device residual pipeline decide identically:
 //   cost*32*err_norm = 32*e^2 + (LAM32[qp] << 2*tr_shift) * rate
 // K: optional [8] Q15 fractional-bit constants (the estBit analog;
 // hevc/rate_model.py derives them from the slice-initial context
@@ -936,7 +936,7 @@ struct Writer {
     nr_cnt[cat]++;
   }
   const int32_t* ref8 = nullptr;                 // [h8*w8] L0 ref idx
-  // --- precomputed residual tensors (the TPU decide/emit split; the
+  // --- precomputed residual tensors (the device decide/emit split; the
   // device ran prediction/transform/quant/recon — frameencoder.cpp:1519's
   // compressCTU analog — and this writer only emits bins, :1533) ---
   const int16_t* pre_lvl_y = nullptr;   // [h*w] TU levels, raster layout
@@ -1996,7 +1996,7 @@ struct Writer {
     int nt = 1 << log2;
     int pw = plane == 0 ? width : width >> 1;
     int ph = plane == 0 ? height : height >> 1;
-    // precomputed (TPU) path: levels/cbf/recon came from the device;
+    // precomputed (device) path: levels/cbf/recon came from the device;
     // emit-only (recon already pre-filled in run())
     if (pre_has8) {
       int b8 = plane == 0 ? ((y0 >> 3) * w8 + (x0 >> 3))

@@ -1,4 +1,4 @@
-"""Intra prediction as linear operators — the TPU-first formulation.
+"""Intra prediction as linear operators — the batched formulation.
 
 Every HEVC intra prediction (planar, DC incl. boundary filters, all 33
 angular modes incl. negative-angle projection, and the 1:2:1 reference
@@ -7,12 +7,12 @@ the entire 35-mode predictor bank as a single weight tensor
 
     W[35, S*S, 4S+1]   with   pred[m] = W[m] @ ref
 
-so that batched whole-frame mode analysis becomes one MXU contraction
+so that batched whole-frame mode analysis becomes one matrix contraction
 (see x265_tpu.models.intra_frame). This replaces x265's per-PU
 intra_pred_allangs asm family (SURVEY.md §2.3, intrapred8_allangs.asm).
 
 Weights are float (exact rational values, no intermediate floor), so the
-TPU predictions can differ from the normative integer predictor by <1 LSB;
+device predictions can differ from the normative integer predictor by <1 LSB;
 decisions only — the CABAC finalizer recomputes normative predictions.
 """
 from __future__ import annotations

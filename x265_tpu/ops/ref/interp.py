@@ -10,9 +10,9 @@ Exact-spec reference implementation (numpy): 8-tap luma at quarter-pel,
     pred is kept at 14-bit; uni-prediction rounds with
     shift = 14 - BitDepth (8.5.4.2.3.1 default weighted prediction).
 
-The TPU path mirrors this as separable convolutions producing per-phase
-planes (ops/interp_tpu once ME needs them); this module is the bit-exact
-oracle and the writer/decoder MC engine.
+The device paths mirror this as batched separable filters
+(models/inter_residual._mc_gather, the ME phase planes); this module is
+the bit-exact oracle and the writer/decoder MC engine.
 """
 from __future__ import annotations
 

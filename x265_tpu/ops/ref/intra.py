@@ -1,7 +1,7 @@
 """Reference (numpy) HEVC intra prediction — spec 8.4.4.2.
 
-This is the golden model for the batched TPU kernels in
-``x265_tpu.ops.intra`` (TestBench pattern, SURVEY.md §4) and the production
+This is the golden model for the batched device kernels in
+``x265_tpu.ops.intra_matrix`` (TestBench pattern, SURVEY.md §4) and the production
 predictor of the in-repo reference decoder. x265's analogous C code:
 source/common/intrapred.cpp:32-240.
 

@@ -1,6 +1,6 @@
 """Reference (numpy) HEVC transforms + quantization — spec 8.6.
 
-Golden model for the TPU transform kernels (``x265_tpu.ops.transform``)
+Golden model for the device transform kernels (``x265_tpu.models.residual``)
 and the production inverse path of the reference decoder. x265 analogs:
 source/common/dct.cpp (partial butterflies), source/encoder/quant.cpp.
 
@@ -221,7 +221,7 @@ def rdoq(coeff: np.ndarray, level: np.ndarray, qp: int, log2: int,
         credit(l) = (psy_fx * 32 * |dequant(l)|) >> 8
 
     All-integer cost arithmetic with the shared fixed-point lambda table
-    (tables.RDOQ_LAM32), so the native finalizer, this oracle and the TPU
+    (tables.RDOQ_LAM32), so the native finalizer, this oracle and the device
     residual pipeline make bit-identical decisions:
         cost * 32 * err_norm = 32*e^2 + (LAM32[qp] << 2*tr_shift) * rate
     The `lam` argument is accepted for API compatibility and ignored.

@@ -1,4 +1,4 @@
-"""Tile-parallel frame analysis over a device mesh — the TPU-native
+"""Tile-parallel frame analysis over a device mesh — the batched
 re-imagining of x265's intra-frame parallelism (SURVEY.md §2.4):
 
   P1 (WPP rows)      -> CTU-row bands sharded over the `tile` mesh axis;
@@ -7,7 +7,7 @@ re-imagining of x265's intra-frame parallelism (SURVEY.md §2.4):
                         finalizer runs per band (per-tile substreams).
   P2 (frame threads) -> reference-row halos: each band's motion search
                         needs R rows of the reference band above/below,
-                        exchanged with jax.lax.ppermute over ICI (the
+                        exchanged with jax.lax.ppermute over NVLink (the
                         m_reconRowFlag wait, frameencoder.cpp:860,
                         becomes a collective).
   RC state           -> per-band SATD complexity psum'd to a global
@@ -102,8 +102,8 @@ def sharded_frame_analysis(mesh: Mesh, y: np.ndarray, ref: np.ndarray,
         out_specs=(P("tile"), P("tile"), P("tile", None), P()),
     ))
     sharding = NamedSharding(mesh, P("tile", None))
-    y_dev = jax.device_put(jnp.asarray(y, dtype=jnp.int32), sharding)
-    ref_dev = jax.device_put(jnp.asarray(ref, dtype=jnp.int32), sharding)
+    y_dev = jax.device_put(np.asarray(y, dtype=np.int32), sharding)
+    ref_dev = jax.device_put(np.asarray(ref, dtype=np.int32), sharding)
     return step(y_dev, ref_dev)
 
 
@@ -116,7 +116,7 @@ def mesh_intra_decisions(mesh: Mesh, y: np.ndarray, width: int, height: int,
     (blocks are neighbor-free; SURVEY §7.1 "batch over CTUs").
 
     Returns (FrameDecisions, icost grid) like
-    models.intra_frame.decide_intra_frame_tpu_with_cost. `psy`/`fast` must
+    models.intra_frame.decide_intra_frame_device_with_cost. `psy`/`fast` must
     match the single-device call exactly — a mesh must never change the
     stream (dryrun_multichip byte-equality gate).
     """
@@ -129,7 +129,7 @@ def mesh_intra_decisions(mesh: Mesh, y: np.ndarray, width: int, height: int,
     yp = np.pad(np.asarray(y, dtype=np.int32),
                 ((0, ph - height), (0, pw - width)), mode="edge")
     sharding = NamedSharding(mesh, P("tile", None))
-    y_dev = jax.device_put(jnp.asarray(yp), sharding)
+    y_dev = jax.device_put(yp, sharding)
     modes, cost = frame_intra_analysis(y_dev, S=S, fast=fast,
                                        psy=float(psy))
     modes = np.asarray(modes)
